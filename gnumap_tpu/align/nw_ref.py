@@ -2,9 +2,9 @@
 
 Score-only affine-gap fitting alignment over many independent (read,
 candidate-locus) pairs at once: ``lax.scan`` over read rows, each step doing
-VPU-wide vector updates over (pairs, W+1) int32 state.  The in-row gap chain
+vector updates over (pairs, W+1) int32 state.  The in-row gap chain
 is the exact prefix-max unrolling frozen in oracle.nw_align (see its
-docstring) — bit-identical integer scores on CPU and TPU.
+docstring) — bit-identical integer scores on every backend.
 
 Padded-read handling [FROZEN]: rows at or beyond a read's length have
 all-zero emission AND free read-gap transitions (open = extend = 0), so every
@@ -12,9 +12,9 @@ final-row state at row Lmax equals the corresponding row-L state maximum —
 scores are exactly invariant to padding for any window.  The oracle scores
 unpadded reads over the same fixed window width; equality is tested.
 
-This is the M1 aligner; the Pallas kernel (nw_pallas.py) replaces it on the
-hot path with identical semantics (SURVEY.md §7 M2) and this file remains the
-cross-check implementation.
+The banded GPU kernel (band_kernel.py) replaces it on the hot path with
+identical semantics; this file remains the plain reference and the path
+for CPUs and unbanded configs.
 
 Reference analog: ``ScoredSeq::align`` inner loop (SURVEY.md §3.3 [REPO?]).
 """
@@ -95,7 +95,7 @@ def nw_scores_multi(emis: jax.Array, windows: jax.Array, lens: jax.Array,
     """Like nw_scores but one emission table shared across C candidate
     windows per read: emis int32[B, L, 5], windows int32[B, C, W] ->
     scores int32[B, C].  The emission gather is 5 predicated selects
-    (windows hold codes 0..4), which vectorizes cleanly on the VPU.
+    (windows hold codes 0..4), which vectorizes cleanly.
     ``band`` as in nw_scores ([FROZEN v3]).
     """
     B, L, _ = emis.shape

@@ -9,7 +9,7 @@ different int32 substitution matrix handed to the same DP kernel — the
 Matrix layout: ``S[read_base (4), genome_code (5)]`` in fixed point
 (``S_SCALE`` units).  Column 4 is the genome-N column.
 
-Emission precompute (the MXU-friendly trick): for a read PWM ``P`` (L,4) the
+Emission precompute: for a read PWM ``P`` (L,4) the
 per-cell DP emission is ``E[i, g] = sum_b P[i,b] * S[b,g]`` — a single
 (L,4)x(4,5) integer matmul done once per read/strand, after which the DP only
 gathers ``E[i, genome_window[j]]``.

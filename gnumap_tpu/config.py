@@ -9,8 +9,8 @@ SURVEY.md §5 "Config / flag system"; exact default values are frozen here and
 documented as OUR defaults.
 
 All scoring is integer fixed-point so that the NumPy oracle, the jnp reference
-aligner and the Pallas TPU kernel produce bit-identical scores on every
-platform (SURVEY.md §7 "hard parts": bit-identical scores).
+aligner, the native host finisher and the GPU kernel produce bit-identical
+scores on every platform (SURVEY.md §7 "hard parts": bit-identical scores).
 """
 
 from __future__ import annotations
@@ -27,14 +27,19 @@ PWM_SCALE = 1 << 12  # 4096
 S_SCALE = 1 << 6  # 64
 # One "score unit" (a match score of 1.0) therefore equals PWM_SCALE * S_SCALE.
 SCORE_ONE = PWM_SCALE * S_SCALE  # 262144
-# Window starts are floor-aligned to this many bases (must equal the 4-bit
-# packing factor in align/nw_pallas.py).
+# Window starts are floor-aligned to this many bases [FROZEN].
 WINDOW_ALIGN = 8
 # Retention-ratio fixed point (see MapperConfig.threshold_for).
 RATIO_BITS = 32
 # Sentinel for -infinity in int32 DP cells.  Chosen so that NEG_INF plus any
 # legal emission/gap term stays far from int32 overflow.
 NEG_INF = -(1 << 29)
+# Empty candidate / hit slot (an anchor no genome reaches).
+SENTINEL = 2 ** 31 - 1
+# Window code of a DP column outside [1, W], and its emission: DEEP plus any
+# diagonal value lies below NEG_INF, so M floors to exactly NEG_INF there.
+POISON = 5
+DEEP = -(1 << 30)
 
 # Base codes.  A=0 C=1 G=2 T=3, N/ambiguous = 4 (genome only; read ambiguity is
 # expressed through the probability vector instead).
@@ -76,20 +81,6 @@ class MapperConfig:
     phred_offset: int = 33
 
     # --- performance (non-semantic) ---
-    pallas_sublanes: int = 256   # DP tile sublanes (read-strand x candidate
-                                 # slots per kernel step; wider amortizes the
-                                 # row loop's per-iteration overhead)
-    pallas_rpt: int = 64         # Pallas tile shape: reads per tile
-                                 # (x candidate slots = pallas_sublanes)
-    pallas_tb_sublanes: int = 128  # traceback-kernel tile (bounded by the
-                                   # (Lp, S, Wp) int8 direction scratch VMEM)
-    pallas_band_rows: int = 128    # banded-kernel reads per tile (x 2
-                                   # candidate segments; 128 measured best
-                                   # on v5e — 256 exceeds compile limits)
-    pallas_band_unroll: int = 1    # DP rows per banded-kernel loop step
-                                   # (2 halves loop fixed costs; rows past
-                                   # a read's end are frozen-free pads so
-                                   # scores are bit-identical either way)
     hit_capacity: int = 1          # device-finish retained-hit capacity,
                                    # as a multiple of 2*batch (H = this x
                                    # 2B).  Raise for multi-map-heavy
@@ -118,9 +109,6 @@ class MapperConfig:
                 "(4^m index buckets; bisulfite seeds are base-3, 3^m)")
         if self.seed_jump < 1:
             raise ValueError("seed_jump must be >= 1")
-        if self.max_candidates % 2:
-            raise ValueError("max_candidates must be even (banded kernel "
-                             "packs 2 candidate segments per register row)")
         if not (0.0 < self.align_score_ratio <= 1.0):
             raise ValueError("align_score_ratio in (0, 1]")
 
@@ -131,9 +119,8 @@ class MapperConfig:
     def gap_extend_q(self) -> int:
         return int(round(self.gap_extend * SCORE_ONE))
 
-    # FROZEN candidate-window rule (shared by oracle, jnp and Pallas paths;
-    # see align/nw_pallas.py docstring): starts floor-align to WINDOW_ALIGN
-    # bases so windows can be fetched as whole 4-bit-packed words.
+    # FROZEN candidate-window rule (shared by the oracle and every device
+    # path): starts floor-align to WINDOW_ALIGN bases.
     def window_width(self) -> int:
         return self.max_read_len + 2 * self.gap_slack + WINDOW_ALIGN
 
@@ -149,11 +136,9 @@ class MapperConfig:
     # bw = 4*slack + WINDOW_ALIGN + 2, which covers every alignment the
     # window model supports — start column in [0, 2*slack + WINDOW_ALIGN)
     # (floor-aligned window rule) plus path deviation within +-slack gives
-    # j - i in [-(slack+1), 3*slack + WINDOW_ALIGN - 1].  The narrower
-    # band lets the Pallas kernel pack 128 // bw candidate segments per
-    # register row (3 at the default slack=8) instead of 2.  bw > 64
+    # j - i in [-(slack+1), 3*slack + WINDOW_ALIGN - 1].  bw > 64
     # disables banding (None) and every DP implementation (oracle, nw_ref,
-    # Pallas, native host finisher) falls back to the unbanded recurrence —
+    # native host finisher) falls back to the unbanded recurrence —
     # band identity is a pure function of this config, never of the
     # backend.  Within-band values are unchanged; retained (score >=
     # a*max) alignments fit the band whenever their net gap drift is
@@ -167,8 +152,8 @@ class MapperConfig:
 
     # FROZEN retention threshold: ceil(a * max_score) computed in exact
     # integer arithmetic with a quantized to RATIO_BITS binary digits, so
-    # host NumPy and TPU int64 kernels agree bit-for-bit (float64 is
-    # unavailable on TPU).
+    # host NumPy and the 32-bit device code (pipeline.mapper.
+    # device_threshold) agree bit-for-bit.
     def ratio_q(self) -> int:
         return int(round(self.align_score_ratio * (1 << RATIO_BITS)))
 

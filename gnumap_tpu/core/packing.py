@@ -1,7 +1,7 @@
 """Sequence primitives: base encoding, 2-bit packing, reverse complement,
 k-mer codes.
 
-TPU-native re-design of the reference's packed-sequence layer (SURVEY.md §1 L0,
+Device re-design of the reference's packed-sequence layer (SURVEY.md §1 L0,
 reference files ``bin_seq.{h,cpp}`` / ``SequenceOperations.*`` [REPO?,
 unverified — mount empty]).  Instead of C++ bit tricks over words, sequences
 live as dense ``int8`` code arrays (one base per byte, ideal for XLA gathers)
@@ -56,6 +56,18 @@ def pack_2bit(codes: np.ndarray) -> np.ndarray:
     words = codes.reshape(-1, 16)
     shifts = (np.arange(16, dtype=np.uint32) * 2)[None, :]
     return (words << shifts).sum(axis=1, dtype=np.uint32)
+
+
+def pack_4bit(codes: np.ndarray) -> np.ndarray:
+    """Codes (0..15) -> int32 words, 8 codes per word, little-end nibble
+    order (code j in bits 4j..4j+3); the tail pads with N (4)."""
+    codes = np.asarray(codes, dtype=np.uint32) & 0xF
+    pad = (-len(codes)) % 8
+    if pad:
+        codes = np.concatenate([codes, np.full(pad, BASE_N, np.uint32)])
+    w = codes.reshape(-1, 8)
+    shifts = (np.arange(8, dtype=np.uint32) * 4)[None, :]
+    return (w << shifts).sum(axis=1, dtype=np.uint32).view(np.int32)
 
 
 def unpack_2bit(words: np.ndarray, n: int) -> np.ndarray:

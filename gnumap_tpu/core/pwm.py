@@ -7,7 +7,7 @@ reference ``SeqReader.*`` / ``centers.h`` [REPO?]).
 
 PWMs are quantized to int32 fixed point (rows sum to ``PWM_SCALE``) so that
 all downstream scoring is exact integer arithmetic — identical on x86 NumPy,
-XLA:CPU and TPU (SURVEY.md §7 "bit-identical scores").
+XLA:CPU and the GPU (SURVEY.md §7 "bit-identical scores").
 """
 
 from __future__ import annotations

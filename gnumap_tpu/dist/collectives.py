@@ -29,7 +29,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gnumap_tpu.align import nw_pallas, nw_ref, scoring
+from gnumap_tpu.align import nw_ref, scoring
+from gnumap_tpu.align.select import resolve_align_impl
 from gnumap_tpu.config import NEG_INF, MapperConfig
 from gnumap_tpu.dist.mesh import INDEX_AXIS, READS_AXIS
 from gnumap_tpu.index import store
@@ -51,8 +52,8 @@ class DistMapper:
     """
 
     def __init__(self, genome: Genome, index, cfg: MapperConfig,
-                 mesh: jax.sharding.Mesh, align_impl: str = "jnp",
-                 finish_impl: str = "host"):
+                 mesh: jax.sharding.Mesh, align_impl: str = "auto",
+                 finish_impl: str = "host", interpret: bool = False):
         from gnumap_tpu.index.builder import BsIndexPair
         self.bisulfite = isinstance(index, BsIndexPair)
         if cfg.bisulfite != self.bisulfite:
@@ -60,7 +61,8 @@ class DistMapper:
                              "builder.build_bs_index collapsed pair")
         self.cfg = cfg
         self.mesh = mesh
-        self.align_impl = align_impl
+        self.align_impl = resolve_align_impl(align_impl, interpret)
+        self._interpret = interpret
         self.genome = genome
         R = mesh.shape[READS_AXIS]
         S = mesh.shape[INDEX_AXIS]
@@ -93,20 +95,10 @@ class DistMapper:
         self.bucket_start, self.positions = self._idx_dev[:2]
         self.S_plus = jax.device_put(S_plus, repl)
         self.S_minus = jax.device_put(S_minus, repl)
-        # genome arrays, passed as shard_map ARGUMENTS (replicated):
-        # pallas = 4-bit packed words (scoring + traceback kernels);
-        # jnp = plain codes
-        if align_impl == "pallas":
-            gw = nw_pallas.pad_genome_words(genome.codes, cfg.window_width())
-            self._g_args = (jax.device_put(gw, repl),)
-        else:
-            self._g_args = (jax.device_put(genome.codes, repl),)
-        self._interpret = jax.default_backend() == "cpu"
+        # the int8 genome, passed as a shard_map ARGUMENT (replicated)
+        self._g_args = (jax.device_put(genome.codes, repl),)
 
         self.finish_impl = finish_impl
-        if finish_impl == "device" and align_impl != "pallas":
-            raise ValueError("finish_impl='device' requires align_impl="
-                             "'pallas'")
         idx_specs = (P(INDEX_AXIS), P(INDEX_AXIS)) * len(tables)
         in_specs = (P(READS_AXIS), P(READS_AXIS), P(READS_AXIS),
                     *idx_specs, P(), P(), *((P(),) * len(self._g_args)))
@@ -116,7 +108,7 @@ class DistMapper:
                            out_specs=out_specs, check_vma=False)
         self._step = jax.jit(fn)
         # device-finish variant: the whole single-chip device tail
-        # (retention + compaction + traceback kernel + flat blob) runs
+        # (retention + compaction + traceback + flat blob) runs
         # inside each reads-shard; every host then decodes only its own
         # shard's blob — no DP on any host (multi-host parity with
         # TpuMapper's finish_impl='device')
@@ -130,40 +122,9 @@ class DistMapper:
         """Local DP over this device's candidate slots.  ``g_args`` are
         this shard's (replicated) genome arrays, threaded as arguments —
         never captured at trace time."""
-        cfg = self.cfg
-        open_q, ext_q = cfg.gap_open_q(), cfg.gap_extend_q()
-        if self.align_impl == "pallas":
-            emis2_t = jnp.transpose(emis2, (0, 2, 1))
-            if cfg.band() is not None:   # [FROZEN v3] banded kernel
-                return nw_pallas.nw_scores_banded(
-                    emis2_t, cands, lens2, g_args[0],
-                    L=cfg.max_read_len, W=cfg.window_width(),
-                    slack=cfg.gap_slack, boff=cfg.band()[0],
-                    bw=cfg.band()[1],
-                    open_q=open_q, ext_q=ext_q,
-                    interpret=self._interpret,
-                    unroll=cfg.pallas_band_unroll)
-            return nw_pallas.nw_scores_pallas(
-                emis2_t, cands, lens2, g_args[0],
-                L=cfg.max_read_len, W=cfg.window_width(),
-                slack=cfg.gap_slack, open_q=open_q, ext_q=ext_q,
-                interpret=self._interpret)
-        C = cands.shape[1]
-        ck = max(1, min(16, C))
-        while C % ck:
-            ck -= 1
-        cc = jnp.transpose(cands.reshape(cands.shape[0], C // ck, ck),
-                           (1, 0, 2))
-
-        def chunk_fn(cand_chunk):
-            win = pipeline_mapper.windows_for(
-                jnp.where(cand_chunk == SENTINEL, 0, cand_chunk),
-                g_args[0], cfg)
-            return nw_ref.nw_scores_multi(emis2, win, lens2, open_q, ext_q,
-                                          band=self.cfg.band())
-
-        scores = jax.lax.map(chunk_fn, cc)
-        return jnp.transpose(scores, (1, 0, 2)).reshape(cands.shape)
+        return pipeline_mapper.dp_scores(self.cfg, self.align_impl, emis2,
+                                         cands, lens2, g_args[0],
+                                         self._interpret)
 
     def _route_hits(self, km, bad, bucket_start, positions):
         """Seed lookup on the (possibly k-mer-range-sharded) CSR table;
@@ -193,11 +154,11 @@ class DistMapper:
     def _shard_fn_tb(self, codes, pwm_q, lens, *rest):
         from gnumap_tpu.pipeline.mapper import device_tb_tail
         n_idx = 4 if self.bisulfite else 2
-        g_words = rest[n_idx + 2]
+        g_codes = rest[n_idx + 2]
         cands, valid, scores, max_sc, emis2, lens2 = self._shard_core(
             codes, pwm_q, lens, *rest)
         return device_tb_tail(self.cfg, cands, valid, scores, max_sc,
-                              emis2, lens2, g_words, self._interpret)
+                              emis2, lens2, g_codes)
 
     def _shard_core(self, codes, pwm_q, lens, *rest):
         cfg = self.cfg

@@ -1,6 +1,6 @@
 """Device mesh for the mapper: axes ("reads", "index").
 
-TPU-native equivalent of the reference's two MPI decompositions (SURVEY.md
+Device-mesh equivalent of the reference's two MPI decompositions (SURVEY.md
 §2 parallelism table, §3.5):
 
   * axis "reads"  — data parallelism: read batches sharded across devices /

@@ -1,13 +1,13 @@
-"""Multi-host execution: the reference's MPI layer, TPU-native.
+"""Multi-host execution: the reference's MPI layer on jax.distributed.
 
 Reference analog (SURVEY.md §3.5, [PAPER-parallel]): ``mpirun -np R gnumap``
 — each rank loads the genome, maps its 1/R of the reads, coverage arrays
 ``MPI_Reduce`` to rank 0, SAM chunks gathered and merged at rank 0.
 
-TPU-native re-design:
+Re-design:
 
   * process groups come from ``jax.distributed.initialize()`` (the
-    coordination service; Gloo/DCN between hosts, ICI within a slice);
+    coordination service; collectives between processes);
   * reads partition by FILE BYTE RANGE for plain single-FASTQ input: host
     h parses only bytes [h/R, (h+1)/R) of the file (record-aligned by
     fastq_ranges), so per-host parse cost is size/R — the reference's MPI
@@ -19,7 +19,7 @@ TPU-native re-design:
     BIT PATTERN (uint32 view — no arithmetic on the wire) followed by a
     host-ordered summation per chunk at every host: bit-reproducible
     regardless of reduction topology, peak extra RSS bounded by
-    R x chunk (not R x genome — VERDICT.md round-2 missing #4), and
+    R x chunk (not R x genome), and
     byte-identical to a single-process run whenever the per-position
     weight sums are exactly representable (the deterministic MPI_Reduce
     analog);
@@ -41,10 +41,18 @@ import numpy as np
 
 
 def initialize(coordinator: str, num_hosts: int, host_id: int) -> None:
-    """jax.distributed process-group init (call before any device use)."""
+    """jax.distributed process-group init (call before any device use).
+
+    With a localhost coordinator every process runs on this machine, so
+    process h takes local device h alone (one card per process; without
+    this every process would reserve memory on every card).  A remote
+    coordinator means one process per machine, using all its devices."""
     import jax
+    host = coordinator.rsplit(":", 1)[0]
+    local = host in ("localhost", "127.0.0.1", "::1", "[::1]")
     jax.distributed.initialize(coordinator, num_processes=num_hosts,
-                               process_id=host_id)
+                               process_id=host_id,
+                               local_device_ids=[host_id] if local else None)
 
 
 def strided(batches: Iterable, num_hosts: int, host_id: int) -> Iterator:

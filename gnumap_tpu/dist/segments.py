@@ -116,8 +116,8 @@ def split_contigs(contigs: Sequence[Tuple[str, str]],
     return groups
 
 
-# default per-segment size: int32-safe with headroom for the genome-word
-# padding (align/nw_pallas.pad_genome_words) and index offsets
+# default per-segment size: int32-safe with headroom for window padding
+# and index offsets
 SEG_LIMIT = (1 << 31) - (1 << 24)
 
 
@@ -180,9 +180,10 @@ class GlobalSegmentedMapper:
     """
 
     def __init__(self, genome: builder.Genome, cfg: MapperConfig,
-                 align_impl: str = "jnp", max_bases: int = SEG_LIMIT,
+                 align_impl: str = "auto", max_bases: int = SEG_LIMIT,
                  n_segments: int = 0, mesh=None, finish_impl=None,
-                 num_hosts: int = 1, host_id: int = 0):
+                 num_hosts: int = 1, host_id: int = 0,
+                 interpret: bool = False):
         self.genome = genome
         self.cfg = cfg
         self.num_hosts = num_hosts
@@ -208,10 +209,12 @@ class GlobalSegmentedMapper:
             if mesh is not None:
                 from gnumap_tpu.dist.collectives import DistMapper
                 m = DistMapper(sub, index, cfg, mesh, align_impl=align_impl,
-                               finish_impl=finish_impl or "host")
+                               finish_impl=finish_impl or "host",
+                               interpret=interpret)
             else:
                 m = pl.TpuMapper(sub, index, cfg, align_impl=align_impl,
-                                 finish_impl=finish_impl)
+                                 finish_impl=finish_impl,
+                                 interpret=interpret)
             self.mappers.append(m)
             self.bases.append(lo)
             self.owned.append(si)

@@ -1,4 +1,4 @@
-"""Genome model + seed index, TPU-native.
+"""Genome model + seed index for the device.
 
 Re-design of the reference's ``Genome``/``GenomeMem`` hash index (SURVEY.md §1
 L1, §3.2 [REPO?]): the pointer-chasing k-mer hash table becomes **two dense

@@ -2,14 +2,13 @@
 variant (SURVEY.md §2 "BWT index variant", existence [REPO?]-unverified;
 built here so the capability surface is closed either way).
 
-TPU-native design — no pointer chasing, every query step is a dense gather:
+Accelerator design — no pointer chasing, every query step is a dense gather:
 
-  * suffix array: full int32[n+1] kept in HBM (positions resolve with ONE
-    gather ``sa[lo:lo+cap]`` instead of the classic sampled-SA LF-walk,
+  * suffix array: full int32[n+1] kept on the device (positions resolve
+    with ONE gather ``sa[lo:lo+cap]`` instead of the classic sampled-SA LF-walk,
     whose per-query walk length is data-dependent and branchy — wrong shape
     for a vector machine);
-  * BWT: 4-bit packed words (8 symbols/word, same packing as the genome
-    image in align/nw_pallas.py);
+  * BWT: 4-bit packed words (8 symbols/word, core.packing.pack_4bit);
   * Occ: rank checkpoints every 32 symbols, int32[nb, 8]; a rank query is
     checkpoint + a 32-lane masked popcount over one gathered word group —
     fixed shape, fully vectorized over (reads x seeds);
@@ -132,7 +131,7 @@ def build_bs_fm_index(genome: Genome, cfg: MapperConfig) -> FmBsPair:
 
 def build_fm_index(genome: Genome, cfg: MapperConfig,
                    collapse: "str | None" = None) -> FmIndex:
-    from gnumap_tpu.align.nw_pallas import pack_4bit
+    from gnumap_tpu.core.packing import pack_4bit
     from gnumap_tpu.index.builder import collapse_codes
     codes = genome.codes
     if collapse is not None:

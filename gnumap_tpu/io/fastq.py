@@ -1,7 +1,7 @@
 """Read I/O: FASTA / FASTQ / Illumina ``_prb.txt``/``_int.txt`` parsing and
 fixed-shape device batching.
 
-TPU-native replacement for the reference's ``SeqReader``/``SeqManager``
+Replacement for the reference's ``SeqReader``/``SeqManager``
 thread pool (SURVEY.md §1 L2 [REPO?]): instead of mutex-guarded read handout
 to pthreads, a streaming parser yields **fixed-shape padded batches**
 (compile-once static shapes) that are double-buffered to the device by the

@@ -1,6 +1,6 @@
 // Native FASTQ/FASTA fast path (reference SeqReader/SeqManager analog,
 // SURVEY.md §1 L2): parse + base-encode + Phred decode in C++ so the host
-// IO thread keeps up with the TPU.  The PWM quantization stays in
+// IO thread keeps up with the device.  The PWM quantization stays in
 // NumPy/Python (vectorized, not the bottleneck); this file turns raw FASTQ
 // bytes into fixed-shape code/qual arrays.
 //

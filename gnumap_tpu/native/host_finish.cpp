@@ -1,6 +1,6 @@
 // Native host-side finisher: exact integer NW traceback.
 //
-// The device (TPU) computes scores for every (read, candidate) pair; the few
+// The device computes scores for every (read, candidate) pair; the few
 // retained winners need a traceback for SAM CIGARs (SURVEY.md §7 "rescoring
 // winners" design).  NumPy does this at ~1 ms/hit, which caps end-to-end
 // throughput; this C++ routine replicates oracle.nw_align bit-for-bit

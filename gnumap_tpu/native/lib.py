@@ -1,5 +1,6 @@
-"""ctypes bindings for the native host runtime (C++), with auto-build and a
-pure-Python fallback.
+"""ctypes bindings for the native host runtime (C++), built from the
+sources in this directory at first use (or by ``make -C gnumap_tpu/native``),
+with a pure-Python fallback that logs a warning when the build fails.
 
 Components (reference analogs in SURVEY.md §2):
   * nw_traceback — exact integer NW + CIGAR traceback (ScoredSeq::align)
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import logging
 import threading
 
 import numpy as np
@@ -19,17 +21,33 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_DIR, "libgnumap_host.so")
 _lock = threading.Lock()
+_log = logging.getLogger(__name__)
 _lib = None
 _tried = False
 
 
 def _build() -> bool:
+    """Compile into a private file and rename it into place, so processes
+    that start together never load a half-written library."""
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
-        r = subprocess.run(["make", "-C", _DIR], capture_output=True,
-                           text=True, timeout=300)
-        return r.returncode == 0 and os.path.exists(_SO)
-    except Exception:
+        r = subprocess.run(["make", "-C", _DIR, f"OUT={tmp}"],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode == 0 and os.path.exists(tmp):
+            os.replace(tmp, _SO)
+    except (OSError, subprocess.SubprocessError) as e:
+        _log.warning("native library build failed (%s); host finish, SAM "
+                     "writer and FASTQ parser fall back to Python", e)
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    if r.returncode != 0 or not os.path.exists(_SO):
+        _log.warning("native library build failed (make exit %d): %s; host "
+                     "finish, SAM writer and FASTQ parser fall back to "
+                     "Python", r.returncode, r.stderr[-2000:])
+        return False
+    return True
 
 
 def _stale() -> bool:
@@ -56,7 +74,9 @@ def get_lib():
             return None
         try:
             lib = ctypes.CDLL(_SO)
-        except OSError:
+        except OSError as e:
+            _log.warning("native library did not load (%s); falling back "
+                         "to Python", e)
             return None
         lib.nw_traceback.restype = ctypes.c_int64
         lib.nw_traceback.argtypes = [

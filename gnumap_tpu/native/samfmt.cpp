@@ -2,8 +2,7 @@
 //
 // The per-record Python path (pipeline/mapper.py map_stream: per-read
 // decode + f-string assembly + per-hit locate) was the remaining host cost
-// of outputs-ON runs (VERDICT.md r4 weak #6: 33% gap between config 9 and
-// config 2).  This formats one BATCH of records in a single call: the
+// of outputs-ON runs.  This formats one BATCH of records in a single call: the
 // caller passes vectorized per-hit arrays (read index, flag, contig,
 // position, mapq, cigar, score, weight) and per-read (codes, quals,
 // names); output is one contiguous ASCII buffer, byte-identical to

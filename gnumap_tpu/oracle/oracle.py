@@ -5,7 +5,7 @@ mount was empty (zero files), so bit-level behavior could not be read from the
 C++ GNUMAP binary.  Semantics below implement the published GNUMAP algorithm
 (Clement et al., Bioinformatics 2010: probabilistic Needleman-Wunsch with
 affine gaps over per-base probability vectors; fractional multi-map posterior
-weighting) with every ambiguous detail FROZEN and documented.  All TPU paths
+weighting) with every ambiguous detail FROZEN and documented.  All device paths
 are property-tested against this file.
 
 Simplicity over speed on purpose: Python loops are fine, workloads are small.
@@ -33,7 +33,7 @@ FROZEN SEMANTICS (change any of these => regenerate all golden files):
     strands (float64).
   * Coverage: +w at every genome position consumed by the alignment (M and D
     columns).  SNP tallies: for M columns, tallies[p,b] += w * pwm[i,b]/SCALE.
-  * Window [FROZEN, shared with the TPU kernels via MapperConfig]:
+  * Window [FROZEN, shared with the device paths via MapperConfig]:
     start = floor((cand - gap_slack)/WINDOW_ALIGN)*WINDOW_ALIGN,
     width = max_read_len + 2*gap_slack + WINDOW_ALIGN; out-of-range -> N.
 """
@@ -133,7 +133,7 @@ def nw_align(emis: np.ndarray, window: np.ndarray, cfg: MapperConfig,
     Row-vectorized: the in-row gap chain Iy[i][j] = max(M[i][j-1]-open,
     Iy[i][j-1]-ext) is unrolled exactly to a prefix max of M[i][k]+k*ext —
     identical values, computed with np.maximum.accumulate.  All cells are
-    floored at NEG_INF (frozen; the TPU kernels clamp identically).
+    floored at NEG_INF (frozen; the device paths clamp identically).
     """
     L = emis.shape[0]
     W = len(window)
@@ -149,7 +149,7 @@ def nw_align(emis: np.ndarray, window: np.ndarray, cfg: MapperConfig,
         # [FROZEN v3] band mask (config.MapperConfig.band): out-of-band
         # cells are exactly NEG_INF.  M is masked BEFORE the in-row prefix
         # max so the Iy chain only sources in-band columns — the order the
-        # TPU kernel's 64-lane segmented cummax realizes by construction.
+        # banded device DP realizes by construction.
         if band is not None:
             boff, bw = band
             off_band = (jj[1:] < i - boff) | (jj[1:] > i - boff + bw - 1)

@@ -43,7 +43,7 @@ def save(path: str, state: StreamState) -> None:
             "sam_offset": state.sam_offset,
             "stats": dataclasses.asdict(state.stats)}
     # compression costs ~10-20 s on chr21-scale float64 coverage — at
-    # 10M-read scale that stalls the stream (VERDICT.md r4 weak #5), so
+    # 10M-read scale that stalls the stream, so
     # large states write raw (disk >1 GB/s); small states stay compressed
     nbytes = sum(a.nbytes for a in arrays.values())
     savez = np.savez_compressed if nbytes < (64 << 20) else np.savez

@@ -50,8 +50,8 @@ def random_genome_families(length: int, seed: int = 0,
     family's unit is stamped ``copies`` times at random spots — the 5-50
     copy regime (within a sane max_hits_per_seed) where reads from a
     repeat retain every copy as a co-best locus and the fractional
-    posterior actually exercises (config 3 of BASELINE; VERDICT.md r3
-    next-#5 — its tandem ~1,868-copy repeat only exceeded the seed cap).
+    posterior actually exercises (a tandem repeat of thousands of copies
+    only exceeds the seed cap).
 
     Returns (genome_str, spots) where spots[f] = sorted int array of
     family f's copy start positions (later stamps may overwrite earlier

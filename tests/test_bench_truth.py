@@ -1,4 +1,4 @@
-"""Bench-harness truth accounting guard (VERDICT.md r3 next-#1).
+"""Bench-harness truth accounting guard.
 
 Round 3 shipped a 0.4939 "accuracy" for the segmented config that was a
 bench bug, not a mapper bug: truth positions were sampled from the unsplit

@@ -1,12 +1,14 @@
 """[FROZEN v5] device accumulation vs the exact host path.
 
 The device path (pipeline.mapper.device_accumulate) accumulates coverage /
-SNP tallies in f32 on device with XLA's deterministic scatter order; the
-host path keeps the frozen hit-ordered float64 contract.  Contract here:
+SNP tallies in f32 on device, summing each accumulator row's contributions
+in a fixed order before one unique-index scatter-add; the host path keeps
+the frozen hit-ordered float64 contract.  Contract here:
 same mapped/multi counts, coverage/tallies equal to f32 tolerance,
 run-to-run determinism bit-exact, and SAM records byte-identical.
 """
 
+import jax
 import numpy as np
 
 from conftest import records_from_sim
@@ -35,11 +37,31 @@ def _workload(snp, lazy_pwm=False, n=96, sam=False):
 
 
 def _run(cfg, gen, idx, recs, accumulate):
-    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                      finish_impl="device", accumulate=accumulate)
     res = pl.map_stream(m, io_fastq.batch_reads(iter(recs), cfg),
                         collect_sam=cfg.sam_out)
     return res
+
+
+def test_scatter_add_rows_matches_host_f64():
+    """_add_rows against a NumPy float64 scatter: overlapping per-hit row
+    windows, a 50-hit pile-up on the same rows, invalid hits; the f32
+    result is bit-identical from call to call."""
+    rng = np.random.default_rng(5)
+    R, H, nr = 64, 200, 3
+    arr = rng.random((R, 128)).astype(np.float32)
+    first = rng.integers(0, R - nr + 1, H).astype(np.int32)
+    first[:50] = 10
+    valid = rng.random(H) < 0.8
+    delta = rng.random((H, nr, 128)).astype(np.float32)
+    want = arr.astype(np.float64)
+    for h in np.nonzero(valid)[0]:
+        want[first[h]:first[h] + nr] += delta[h]
+    f = jax.jit(pl._add_rows)
+    got = np.asarray(f(arr, first, valid, delta))
+    assert np.array_equal(got, np.asarray(f(arr, first, valid, delta)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_device_accum_matches_host_coverage():
@@ -89,14 +111,14 @@ def test_device_accum_checkpoint_resume(tmp_path):
     r_ref = _run(cfg, gen, idx, recs, "device")
 
     # interrupted: checkpoint every batch, stop after 1 of 2 batches
-    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                      finish_impl="device", accumulate="device")
     batches = list(io_fastq.batch_reads(iter(recs), cfg))
     assert len(batches) >= 2
     pl.map_stream(m, iter(batches[:1]), collect_sam=False,
                   checkpoint_path=ck, checkpoint_every=1)
     # fresh mapper resumes from the checkpoint and finishes the stream
-    m2 = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m2 = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                       finish_impl="device", accumulate="device")
     r2 = pl.map_stream(m2, iter(batches), collect_sam=False,
                        checkpoint_path=ck, checkpoint_every=1)
@@ -121,7 +143,7 @@ def test_device_accum_checkpoint_resume_inflight(tmp_path):
         if idx_b >= 2:          # interrupt with ~3 batches still in flight
             raise Boom()
 
-    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                      finish_impl="device", accumulate="device")
     batches = list(io_fastq.batch_reads(iter(recs), cfg))
     assert len(batches) >= 5
@@ -132,7 +154,7 @@ def test_device_accum_checkpoint_resume_inflight(tmp_path):
         raise AssertionError("fault injection did not fire")
     except Boom:
         pass
-    m2 = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m2 = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                       finish_impl="device", accumulate="device")
     r2 = pl.map_stream(m2, iter(batches), collect_sam=False,
                        checkpoint_path=ck, checkpoint_every=1)

@@ -1,25 +1,23 @@
-"""Device-side traceback kernel vs the frozen oracle.
+"""Device finish (align/nw_finish.py) vs the frozen oracle.
 
-nw_traceback_pallas must reproduce oracle.nw_align(traceback=True) —
+nw_finish.traceback must reproduce oracle.nw_align(traceback=True) —
 (cigar, pos_in_window, ref_len) — exactly, for every hit the mapper would
 retain (score > 0; the retention filter guarantees the walk never starts
-from a NEG_INF-saturated cell).  Runs in CPU interpret mode here and on the
-real TPU via tests marked tpu (same pattern as tests/test_pallas.py).
+from a NEG_INF-saturated cell), and nw_finish.pure_detect may only claim
+hits whose oracle CIGAR is all-M.  Both are plain jnp/lax, so these tests
+run the same code the GPU runs.
 """
 
 import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 
-from gnumap_tpu.align import nw_pallas, scoring
-from gnumap_tpu.config import MapperConfig
+from gnumap_tpu.align import band_kernel, nw_finish, scoring
+from gnumap_tpu.config import SENTINEL as SENT, MapperConfig
 from gnumap_tpu.core import pwm
 from gnumap_tpu.oracle import oracle
-
-SENT = nw_pallas.SENTINEL
-
-on_tpu = jax.default_backend() == "tpu"
 
 
 def _mk_hits(rng, H, L, G, cfg, indel_rate=0.15):
@@ -61,16 +59,29 @@ def _mk_hits(rng, H, L, G, cfg, indel_rate=0.15):
     return genome, emis, cands, lens
 
 
-def _check(cfg, H, L, G, seed, interpret):
+def _windows(cfg, genome, cands):
+    """int32[H, W] genome windows (N outside the genome; slot 0 at
+    SENTINEL slots)."""
+    W = cfg.window_width()
+    G = len(genome)
+    out = np.full((len(cands), W), 4, np.int32)
+    for h, c in enumerate(cands):
+        ws = int(cfg.window_start(0 if c == SENT else int(c)))
+        lo, hi = max(ws, 0), min(ws + W, G)
+        if hi > lo:
+            out[h, lo - ws:hi - ws] = genome[lo:hi]
+    return out
+
+
+def _check(cfg, H, L, G, seed):
     rng = np.random.default_rng(seed)
     genome, emis, cands, lens = _mk_hits(rng, H, L, G, cfg)
     W = cfg.window_width()
-    gwords = nw_pallas.pad_genome_words(genome, W)
-    emis_t = np.ascontiguousarray(emis.transpose(0, 2, 1))
-    ops, jfin = nw_pallas.nw_traceback_pallas(
-        emis_t, cands, lens, gwords, L=L, W=W, slack=cfg.gap_slack,
-        open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q(),
-        interpret=interpret, band=cfg.band())
+    lens_k = np.where(cands == SENT, 0, lens)
+    ops, jfin = nw_finish.traceback(
+        jnp.asarray(emis), jnp.asarray(_windows(cfg, genome, cands)),
+        jnp.asarray(lens_k), open_q=cfg.gap_open_q(),
+        ext_q=cfg.gap_extend_q(), band=cfg.band())
     ops, jfin = np.asarray(ops), np.asarray(jfin)
     n_checked = n_indel = 0
     for h in range(H):
@@ -87,7 +98,7 @@ def _check(cfg, H, L, G, seed, interpret):
             emis[h, :lb], window, cfg, traceback=True)
         if sc <= 0:
             continue  # the mapper never tracebacks non-retained hits
-        got_cigar, got_rl = nw_pallas.decode_ops(ops[h], lb)
+        got_cigar, got_rl = nw_finish.decode_ops(ops[h], lb)
         assert got_cigar == cigar, (h, got_cigar, cigar)
         assert got_rl == ref_len, (h, got_rl, ref_len)
         assert int(jfin[h]) == pos_w, (h, int(jfin[h]), pos_w)
@@ -100,41 +111,45 @@ def _check(cfg, H, L, G, seed, interpret):
 
 def test_devtb_matches_oracle_interpret():
     _check(MapperConfig(max_read_len=16, gap_slack=4), H=64, L=16, G=300,
-           seed=5, interpret=True)
+           seed=5)
 
 
 def test_devtb_matches_oracle_interpret_longer():
     _check(MapperConfig(max_read_len=24, gap_open=2.0), H=128, L=24, G=900,
-           seed=9, interpret=True)
+           seed=9)
 
 
-@pytest.mark.skipif(not on_tpu, reason="requires TPU (kernel compile)")
-def test_devtb_matches_oracle_tpu():
-    _check(MapperConfig(max_read_len=32), H=128, L=32, G=1200, seed=13,
-           interpret=False)
+def test_traceback_unbanded_matches_oracle():
+    # gap_slack=16 -> band() is None: the traceback runs unbanded
+    cfg = MapperConfig(max_read_len=24, gap_slack=16)
+    assert cfg.band() is None
+    _check(cfg, H=64, L=24, G=900, seed=3)
 
 
-def _check_pure(cfg, genome, emis, cands, lens, interpret=True,
-                min_pure_frac=0.0):
-    """Drive nw_pure_banded against the oracle: every hit it declares pure
-    must traceback to an all-M CIGAR with the oracle's exact pos_in_window
-    (incl. the smallest-column tie-break)."""
+def test_traceback_real_width_indels_match_oracle():
+    """The production widths (L = 104, W = 128, band 42) with 1-2bp
+    indels in a third of the reads."""
+    _check(MapperConfig(max_read_len=104), H=48, L=104, G=5000, seed=13)
+
+
+def _check_pure(cfg, genome, emis, cands, lens, min_pure_frac=0.0):
+    """Drive nw_finish.pure_detect against the oracle: every hit it
+    declares pure must traceback to an all-M CIGAR with the oracle's exact
+    pos_in_window (incl. the smallest-column tie-break).  Scores come from
+    the banded kernel in the Pallas interpreter."""
     L = cfg.max_read_len
     W = cfg.window_width()
     G = len(genome)
-    gwords = nw_pallas.pad_genome_words(genome, W)
-    emis_t = np.ascontiguousarray(emis.transpose(0, 2, 1))
     boff, bw = cfg.band()
-    scores = np.asarray(nw_pallas.nw_scores_banded(
-        emis_t, cands[:, None], lens, gwords, L=L, W=W,
-        slack=cfg.gap_slack, boff=boff, bw=bw,
+    scores = np.asarray(band_kernel.nw_scores_banded(
+        jnp.asarray(emis), jnp.asarray(cands[:, None]), jnp.asarray(lens),
+        jnp.asarray(genome), W=W, slack=cfg.gap_slack, boff=boff, bw=bw,
         open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q(),
-        interpret=interpret))[:, 0]
-    pure, jfin = nw_pallas.nw_pure_banded(
-        emis_t, cands, lens, scores, gwords, L=L, W=W,
-        slack=cfg.gap_slack, boff=boff, bw=bw,
-        open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q(),
-        interpret=interpret)
+        interpret=True))[:, 0]
+    pure, jfin = nw_finish.pure_detect(
+        jnp.asarray(emis), jnp.asarray(_windows(cfg, genome, cands)),
+        jnp.asarray(np.where(cands == SENT, 0, lens)), jnp.asarray(scores),
+        boff=boff, bw=bw, open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
     pure, jfin = np.asarray(pure), np.asarray(jfin)
     n_checked = n_pure = 0
     for h in range(len(cands)):
@@ -273,7 +288,7 @@ def test_lazy_pwm_batch_matches_explicit():
     from gnumap_tpu.pipeline import mapper as pl
     import dataclasses as dc
     cfg, gen, idx, batches = _pipeline_workload(41, indel=0.05)
-    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                      finish_impl="device")
     for b in batches:
         lazy = dc.replace(b, pwm_arr=None)
@@ -285,9 +300,22 @@ def test_lazy_pwm_batch_matches_explicit():
 def test_device_finish_matches_host_finish(seed, indel):
     from gnumap_tpu.pipeline import mapper as pl
     cfg, gen, idx, batches = _pipeline_workload(seed, indel=indel)
-    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                           finish_impl="host")
-    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
+                         finish_impl="device")
+    for b in batches:
+        _hits_equal(m_host.map_batch(b), m_dev.map_batch(b))
+
+
+def test_device_finish_with_jnp_scoring():
+    """The device finish needs no kernel: with the jnp scan it equals the
+    host finish too."""
+    from gnumap_tpu.pipeline import mapper as pl
+    cfg, gen, idx, batches = _pipeline_workload(23, indel=0.05)
+    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="jnp",
+                          finish_impl="host")
+    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="jnp",
                          finish_impl="device")
     for b in batches:
         _hits_equal(m_host.map_batch(b), m_dev.map_batch(b))
@@ -295,13 +323,14 @@ def test_device_finish_matches_host_finish(seed, indel):
 
 def test_device_finish_indel_heavy():
     """Every read carries an indel: exercises the compacted-ops fetch and,
-    when the indel count exceeds the K = H/8 capacity, the fallback."""
+    when the traceback count exceeds K = tb_capacity(H), the
+    fallback."""
     from gnumap_tpu.pipeline import mapper as pl
     cfg, gen, idx, batches = _pipeline_workload(55, n_reads=60, indel=1.0,
                                                 ratio=0.6)
-    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                           finish_impl="host")
-    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                          finish_impl="device")
     n_indel_cigars = 0
     for b in batches:
@@ -318,9 +347,9 @@ def test_device_finish_overflow_fallback():
     from gnumap_tpu.pipeline import mapper as pl
     cfg, gen, idx, batches = _pipeline_workload(33, n_reads=24, glen=2000,
                                                 repeats=True)
-    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                           finish_impl="host")
-    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                          finish_impl="device")
     saw_multi = False
     for b in batches:
@@ -333,6 +362,6 @@ def test_device_finish_overflow_fallback():
 def test_decode_ops_runs():
     # 3M 2D 2M 1I 1M  ->  rows: M M M(d=2) M M I M
     ops = np.array([0, 0, (2 << 1), 0, 0, 1, 0], np.int32)
-    cigar, rl = nw_pallas.decode_ops(ops, 7)
+    cigar, rl = nw_finish.decode_ops(ops, 7)
     assert cigar == "3M2D2M1I1M"
     assert rl == (7 - 1) + 2

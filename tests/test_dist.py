@@ -19,8 +19,12 @@ from gnumap_tpu.utils import sim
 
 from conftest import records_from_sim
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 faked devices")
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    # decided per test, not at import: every xdist worker must collect
+    # the same tests
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 faked devices")
 
 
 @pytest.fixture(scope="module")
@@ -71,13 +75,13 @@ def test_dist_device_finish_matches_single(R, S):
                                indel_rate=0.3, contig="dd")
     batch = next(io_fastq.batch_reads(
         iter(records_from_sim(reads, cfg)), cfg))
-    ref_hits = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    ref_hits = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                             finish_impl="device").map_batch(batch)
     assert any("D" in h.cigar or "I" in h.cigar
                for hl in ref_hits for h in hl)
     mesh = mesh_mod.make_mesh(R, S)
     dm = collectives.DistMapper(gen, idx, cfg, mesh, align_impl="pallas",
-                                finish_impl="device")
+                                interpret=True, finish_impl="device")
     stats = pl.BatchStats()
     hits = dm.map_batch(batch, stats)
     assert stats.n_mapped == sum(1 for h in ref_hits if h)

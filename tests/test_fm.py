@@ -123,8 +123,10 @@ def test_fm_pipeline_matches_csr(align_impl):
         recs.append(io_fastq.ReadRecord(r.name, c,
                                         pwm_mod.pwm_from_calls(c, q),
                                         q.astype(np.int16)))
-    m_csr = pl.TpuMapper(gen, csr, cfg, align_impl=align_impl)
-    m_fm = pl.TpuMapper(gen, fmi, cfg, align_impl=align_impl)
+    m_csr = pl.TpuMapper(gen, csr, cfg, align_impl=align_impl,
+                            interpret=True)
+    m_fm = pl.TpuMapper(gen, fmi, cfg, align_impl=align_impl,
+                           interpret=True)
     for b in io_fastq.batch_reads(iter(recs), cfg):
         ha = m_csr.map_batch(b)
         hb = m_fm.map_batch(b)
@@ -156,8 +158,10 @@ def test_fm_bisulfite_matches_csr_pair(align_impl):
         q = np.frombuffer(r.qual.encode(), np.uint8).astype(np.int32) - 33
         recs.append(io_fastq.ReadRecord(r.name, c, None,
                                         q.astype(np.int16)))
-    m_csr = pl.TpuMapper(gen, csr_pair, cfg, align_impl=align_impl)
-    m_fm = pl.TpuMapper(gen, fm_pair, cfg, align_impl=align_impl)
+    m_csr = pl.TpuMapper(gen, csr_pair, cfg, align_impl=align_impl,
+                            interpret=True)
+    m_fm = pl.TpuMapper(gen, fm_pair, cfg, align_impl=align_impl,
+                           interpret=True)
     n_mapped = 0
     for b in io_fastq.batch_reads(iter(recs), cfg):
         ha = m_csr.map_batch(b)

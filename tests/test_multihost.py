@@ -1,7 +1,6 @@
 """Multi-host CI without a cluster: two REAL ``jax.distributed`` CPU
 processes on localhost (Gloo), asserting the merged outputs are
-byte-identical to the single-process run (SURVEY.md §3.5 MPI analog;
-VERDICT.md next-#4)."""
+byte-identical to the single-process run (SURVEY.md §3.5 MPI analog)."""
 
 import os
 import socket
@@ -76,7 +75,7 @@ def test_two_process_matches_single(tmp_path):
 
 
 def test_two_process_segmented_matches_single(tmp_path):
-    """Genome-partitioned multi-host mode (VERDICT.md r3 next-#8; the
+    """Genome-partitioned multi-host mode (the
     reference's RAM-bound MPI layout, SURVEY.md §3.5): host h owns
     segment h, reads broadcast; per-read posterior denominators reduce
     across hosts.  Coverage/SNP tracks must be byte-identical to the
@@ -114,7 +113,7 @@ def test_two_process_segmented_matches_single(tmp_path):
 
     # per-read SAM records are split across hosts in this mode; the
     # record-level merge must reproduce the single-process emission
-    # byte-for-byte (VERDICT.md r4 missing #4)
+    # byte-for-byte
     assert body(tmp_path / "single.sam") == body(tmp_path / "multi.sam")
     assert not list(tmp_path.glob("multi.sam.host*"))
     assert (tmp_path / "single.sgr").read_text() == \
@@ -127,7 +126,7 @@ def test_two_process_segmented_matches_single(tmp_path):
 def test_two_process_checkpoint_restart(tmp_path):
     """Kill both hosts mid-run (fault injection), restart from per-host
     checkpoints: merged outputs byte-identical to the uninterrupted
-    2-process run (VERDICT.md round-2 next-#7, SURVEY.md §5 recovery)."""
+    2-process run."""
     g = sim.random_genome(9000, seed=81, repeat_frac=0.03)
     sim.write_fasta(str(tmp_path / "g.fa"), [("chrR", g)])
     reads = sim.simulate_reads(g, 128, 40, seed=82, contig="chrR")

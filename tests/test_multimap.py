@@ -1,4 +1,4 @@
-"""Multi-map stress correctness (VERDICT.md r3 next-#5): repeat-family
+"""Multi-map stress correctness: repeat-family
 workloads where reads retain many co-best loci — the defining GNUMAP
 feature (SURVEY.md §0.5, fractional posterior across repeat loci).
 
@@ -41,7 +41,7 @@ def _family_workload(hit_capacity=4, n_reads=96):
 def test_multimap_weights_and_truth():
     cfg, gen, idx, reads = _family_workload()
     recs = records_from_sim(reads, cfg)
-    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                      finish_impl="device")
     stats = pl.BatchStats()
     n_multi_deep = n_checked = 0
@@ -70,9 +70,9 @@ def test_hit_capacity_matches_host_path():
     """hit_capacity=4 device blob decode == exact host full-fetch path."""
     cfg, gen, idx, reads = _family_workload(hit_capacity=4)
     recs = records_from_sim(reads, cfg)
-    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                          finish_impl="device")
-    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                           finish_impl="host")
     key = lambda hh: [(h.strand, h.pos, h.score, h.cigar, h.weight)
                       for h in hh]
@@ -93,9 +93,9 @@ def test_capacity_overflow_falls_back_exact():
     reads = sim.simulate_reads(genome, 64, 36, seed=16, sub_rate=0.0,
                                contig="t", positions=starts)
     recs = records_from_sim(reads, cfg)
-    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_dev = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                          finish_impl="device")
-    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m_host = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                           finish_impl="host")
     key = lambda hh: [(h.strand, h.pos, h.score, h.cigar, h.weight)
                       for h in hh]
@@ -113,7 +113,7 @@ def test_multimap_oracle_subsample():
     ogen = oracle.OracleGenome(gen.codes, gen.names, gen.starts,
                                gen.lengths)
     oidx = oracle.build_oracle_index(ogen, cfg)
-    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                      finish_impl="device")
     b = next(io_fastq.batch_reads(iter(recs), cfg))
     got = m.map_batch(b)
@@ -136,7 +136,7 @@ def test_repeat_coverage_fractional():
     reads = sim.simulate_reads(genome, 16, 36, seed=17, sub_rate=0.0,
                                contig="t", positions=starts + 30)
     recs = records_from_sim(reads, cfg)
-    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas",
+    m = pl.TpuMapper(gen, idx, cfg, align_impl="pallas", interpret=True,
                      finish_impl="device")
     res = pl.map_stream(m, io_fastq.batch_reads(iter(recs), cfg),
                         collect_sam=False)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-""">2^31-base genome demonstration (VERDICT.md r4 missing #3;
-BASELINE.json:11): build a ~2.6 Gbp multi-contig synthetic genome, map
-reads through the CLI's GlobalSegmentedMapper path on the real chip, and
-record per-segment index build time, device residency, host RSS, accuracy
-and throughput to SCALE_3G.json.
+""">2^31-base genome demonstration (BASELINE.json:11): build a ~2.6 Gbp
+multi-contig synthetic genome, map reads through the CLI's
+GlobalSegmentedMapper path on the device, and record per-segment index
+build time, device residency, host RSS, accuracy and throughput to a JSON
+file (--out, default scale3g.json in the work directory).
 
 The genome deliberately exceeds int32 addressing (2.6e9 > 2^31), so the
 run only works through the contig-aligned segment machinery
@@ -19,6 +19,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -108,13 +109,19 @@ def main():
     ap.add_argument("--segments", type=int, default=2)
     ap.add_argument("--mer", type=int, default=13)
     ap.add_argument("--batch-size", type=int, default=8192)
-    ap.add_argument("--workdir", default="/tmp/gnumap_3g")
-    ap.add_argument("--out", default=os.path.join(REPO, "SCALE_3G.json"))
+    ap.add_argument("--workdir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "gnumap_3g"),
+                    help="inputs and outputs (default: TMPDIR/gnumap_3g)")
+    ap.add_argument("--out", default=None,
+                    help="result JSON (default: WORKDIR/scale3g.json)")
     args = ap.parse_args()
 
     from tools.scale_run import run_cli  # noqa: E402  (RSS-sampling runner)
 
     os.makedirs(args.workdir, exist_ok=True)
+    if args.out is None:
+        args.out = os.path.join(args.workdir, "scale3g.json")
     total = int(args.gbases * 1e9)
     if total <= (1 << 31) and not os.environ.get("SCALE3G_SMOKE"):
         raise SystemExit("the point is to exceed int32 addressing "
@@ -155,13 +162,13 @@ def main():
                     and strand == ts):
                 ok += 1
 
-    # device residency estimate: per-segment CSR + packed genome words
+    # device residency estimate: per-segment CSR + int8 genome
     seg = total // args.segments
-    hbm = {
+    residency = {
         "positions_bytes_total": total * 4,
         "bucket_start_bytes_per_segment": (4 ** args.mer + 1) * 4,
-        "genome_words_bytes_total": total // 2,
-        "est_total_gb": round((total * 4 + total // 2
+        "genome_bytes_total": total,
+        "est_total_gb": round((total * 4 + total
                                + args.segments * (4 ** args.mer + 1) * 4)
                               / 1e9, 2),
     }
@@ -177,7 +184,7 @@ def main():
         "peak_rss_mb": rss[0] // 1024,
         "accuracy_primary": round(ok / max(tot, 1), 4),
         "primaries": tot,
-        "hbm_residency": hbm,
+        "device_residency": residency,
     }
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -1,13 +1,14 @@
 #!/usr/bin/env python
-"""Sustained-scale demonstration (VERDICT.md r3 next-#6; BASELINE.json:8):
-one config-2-scale run with N reads (default 1M) through the REAL CLI with
-SAM output and checkpoints on, recording sustained reads/s, peak RSS, and
-checkpoint overhead to a JSON artifact (SCALE_1M.json at the repo root).
+"""Sustained-scale run (BASELINE.json:8): one config-2-scale run with N
+reads (default 1M) through the REAL CLI with SAM output and checkpoints on,
+recording sustained reads/s, peak RSS, and checkpoint overhead to a JSON
+artifact (default: scale.json in the work directory).
 
-Usage:  python tools/scale_run.py [--reads 1000000] [--out SCALE_1M.json]
+Usage:  python tools/scale_run.py [--reads 1000000] [--out PATH]
 
 The workload is generated streaming to disk (FASTA + FASTQ), then the CLI
-runs as a subprocess whose /proc RSS is sampled; reads/s is end-to-end
+runs as a subprocess whose /proc RSS is sampled — one CLI child at a time,
+so it alone holds the accelerator; reads/s is end-to-end
 mapping wall (the CLI's own map_s, which excludes index build), and
 checkpoint overhead is measured as (checkpointed run wall - plain run
 map_s) on the same process' steady state -- both runs' stats are recorded.
@@ -20,6 +21,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -110,8 +112,12 @@ def main():
     ap.add_argument("--reads", type=int, default=1_000_000)
     ap.add_argument("--genome-len", type=int, default=4_641_652)
     ap.add_argument("--read-len", type=int, default=100)
-    ap.add_argument("--out", default=os.path.join(REPO, "SCALE_1M.json"))
-    ap.add_argument("--workdir", default="/tmp/gnumap_scale")
+    ap.add_argument("--out", default=None,
+                    help="result JSON (default: WORKDIR/scale.json)")
+    ap.add_argument("--workdir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "gnumap_scale"),
+                    help="inputs and outputs (default: TMPDIR/gnumap_scale)")
     ap.add_argument("--batch-size", type=int, default=8192)
     ap.add_argument("--mer", type=int, default=12)
     ap.add_argument("--sgr", action="store_true",
@@ -120,6 +126,8 @@ def main():
     args = ap.parse_args()
 
     os.makedirs(args.workdir, exist_ok=True)
+    if args.out is None:
+        args.out = os.path.join(args.workdir, "scale.json")
     t0 = time.perf_counter()
     fa = os.path.join(args.workdir, "genome.fa")
     fq = os.path.join(args.workdir, "reads.fq")
